@@ -13,7 +13,7 @@ can be cross-validated:
 
 Unlike the reference (pointer-chasing over an mmap), the in-memory form here
 is a dense numpy byte array plus offset/length tables, from which padded
-2-bit code batches are materialized for the TPU sketch kernel.
+2-bit code batches are materialized for the device sketch kernel.
 """
 
 from __future__ import annotations

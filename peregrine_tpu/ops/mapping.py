@@ -12,7 +12,7 @@ pointer only ever advances at positions whose minimizer count passes the
 gates, so the candidate anchor pairs are exactly consecutive elements of
 ``[first_hit] + [i : count_valid(i)]``; bucket membership is one
 searchsorted over a composite (mmer0, mmer1) key instead of a dict probe
-per step (VERDICT r1 weak #3 — the last scalar hot loop in the pipeline).
+per step (the last scalar hot loop in the pipeline).
 """
 
 from __future__ import annotations
@@ -66,7 +66,7 @@ def map_reads_to_ref_grouped(read_idx: ShimmerIndex,
 
     The reference bounds this stage's memory with a disk sort of the
     text dump (`sort -T tmp -S 8g` over reads2ref,
-    py/scripts/pg_run.py:491-496).  The TPU-native equivalent skips the
+    py/scripts/pg_run.py:491-496).  The equivalent here skips the
     text round-trip: matched buckets already carry their contig rid, so
     per-contig destinations are computed analytically (bincount +
     groupwise cumsum over BUCKETS, which are ~100x fewer than rows) and

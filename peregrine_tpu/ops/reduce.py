@@ -11,7 +11,7 @@ column j is selected by an r-step shift tournament on the composite key
 (x with its span byte replaced by the ring slot); ties are impossible
 because slots within one window are distinct.  Applied once for L1, twice
 for L2 (src/shmr_index.c:199,216).  No gathers or scatters: r static
-shifts + where-chains, then one stable sort for compaction.
+shifts + where-chains, then the log-shift compaction of ops.sketch.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .sketch import INF, _compact, _shift_right
+from .sketch import INF, _shift_compact, _shift_right
 
 
 def reduce_impl(x: jnp.ndarray, y: jnp.ndarray, count: jnp.ndarray, *, r: int):
@@ -57,7 +57,7 @@ def reduce_impl(x: jnp.ndarray, y: jnp.ndarray, count: jnp.ndarray, *, r: int):
 
     ox = jnp.where(emit, best_x, INF)
     oy = jnp.where(emit, best_y, INF)
-    (ox, oy), ocount = _compact(emit, [ox, oy])
+    (ox, oy), ocount = _shift_compact(emit, [ox, oy])
     return ox, oy, ocount
 
 

@@ -1,12 +1,13 @@
-"""Multi-chip overlap alignment over a read-sharded device seqdb.
+"""Multi-device overlap alignment over a read-sharded device seqdb.
 
-At human scale the packed seqdb no longer fits one chip's HBM (90 Gbases
-of 30x reads), so each chip holds only its read shard and alignment
-requests ride ICI to the data instead of the data being replicated
-(SURVEY.md §2.3: the reference's analog is N processes sharing one mmap;
-a TPU pod has no shared memory, so the all_to_all IS the mmap).  Shards
-store the 2-bit + ambiguity planes (ops.dbgather), ~2.7x less HBM than
-byte-per-base; exchanged query windows ride ICI 2-bit packed as well.
+At human scale the packed seqdb no longer fits one device's memory (90
+Gbases of 30x reads), so each device holds only its read shard and
+alignment requests ride the interconnect to the data instead of the data
+being replicated (SURVEY.md §2.3: the reference's analog is N processes
+sharing one mmap; devices share no memory, so the all_to_all IS the
+mmap).  Shards store the 2-bit + ambiguity planes (ops.dbgather), ~2.7x
+less device memory than byte-per-base; exchanged query windows ride the
+all_to_all 2-bit packed as well.
 
 Execution model per batch of (query read, target read) alignment requests:
 

@@ -8,7 +8,7 @@ computation — so the reported error count is the true Levenshtein
 distance of the contig against its genome interval, not a greedy
 aligner's estimate.
 
-Method (rolling exact-match anchors, VERDICT r3 item 4):
+Method (rolling exact-match anchors):
 
   1. Orient the contig (forward / reverse-complement) and anchor its
      start in the doubled genome (circular assemblies may start at any

@@ -68,10 +68,6 @@ def main():
     repeats = "--repeats" in sys.argv
     if repeats:
         BASE = "/tmp/ecoli_h2h_rep"
-    import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/jax_comp"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
     import numpy as np
 
     from refbuild import ensure_ref_build

@@ -23,9 +23,6 @@ def main():
     import jax
     if "--cpu" in sys.argv:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/jax_comp"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
 
     import logging
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")

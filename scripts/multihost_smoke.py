@@ -3,7 +3,7 @@
 Launches N_PROC controller processes (jax.distributed over localhost, CPU
 backend, 4 virtual devices each) and runs the hash-shard index exchange
 and the sharded-seqdb overlap alignment over the GLOBAL mesh — the same
-code path a real TPU pod runs, minus the ICI.  Validates that
+code path a multi-host device mesh runs, minus the interconnect.  Validates that
 parallel/distributed.py + shard_map programs work multi-controller, not
 just on a single-process virtual mesh.
 

@@ -1,8 +1,5 @@
 """Head-to-head: reference pipeline vs peregrine_tpu on identical reads."""
 import os, subprocess, sys, time
-import jax
-jax.config.update("jax_compilation_cache_dir", os.path.expanduser("~/.cache/jax_comp"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
 import numpy as np
 sys.path.insert(0, "/root/repo/tests")
 from simdata import random_genome, simulate_reads

@@ -65,17 +65,10 @@ def main():
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/jax_comp"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
 
     import logging
     import numpy as np
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
-    # start absorbing the remote first-load stall under the (long) read
-    # simulation below
-    from peregrine_tpu.pipeline.warmup import warm_device_async
-    warm_device_async()
     from peregrine_tpu.config import AsmConfig
     from peregrine_tpu.io.seqdb import read_fastx
     from peregrine_tpu.pipeline.run import Assembly

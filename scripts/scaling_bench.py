@@ -5,13 +5,13 @@ multi-device scaling efficiency): each device receives the same per-device
 workload, so perfect scaling keeps the wall constant as devices are added
 (efficiency_n = T_1 / T_n).
 
-    python scripts/scaling_bench.py             # real backend (1 chip here)
+    python scripts/scaling_bench.py             # the accelerator backend
     python scripts/scaling_bench.py --cpu       # 8 virtual CPU devices:
                                                 # validates the mesh programs
                                                 # and the harness, NOT perf
-                                                # (all 8 share 2 host cores)
+                                                # (all 8 share the host cores)
 
-On a real pod slice this script runs unchanged over all local chips; add
+On a multi-GPU host this script runs unchanged over all local devices; add
 `--multihost` after `jax.distributed.initialize` (parallel/distributed.py)
 for N>=2 hosts.  Prints one JSON line per (stage, n_devices).
 """
@@ -40,9 +40,6 @@ def main():
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/jax_comp"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
     import numpy as np
 
     from peregrine_tpu.parallel.sharded_index import make_mesh, sharded_index

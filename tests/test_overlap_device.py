@@ -70,7 +70,7 @@ def test_device_overlap_matches_host(rng):
 
 
 def test_hybrid_overlap_matches_host(rng):
-    """overlap_all_hybrid (TPU thread + host threads pulling chunks from
+    """overlap_all_hybrid (device thread + host threads pulling chunks from
     one queue) reproduces the host chunked path at pair-set level."""
     from peregrine_tpu.ops.overlap import overlap_all, overlap_all_hybrid
 

@@ -77,54 +77,3 @@ def test_end_filter_matches_reference_semantics(rng):
     assert len(x3) == int(want3.sum())
     np.testing.assert_array_equal(y5, y[want5])
     np.testing.assert_array_equal(y3, y[want3])
-
-
-def test_reduce_step_pallas_interpret_matches_reduce_impl(rng):
-    """The Pallas plane reduction (hash+slot lexicographic tournament +
-    dedup + shift distances) equals reduce_impl on converted planes."""
-    import jax.numpy as jnp
-    from peregrine_tpu.ops.compact_pallas import (move_plane, reduce_step)
-    from peregrine_tpu.ops.reduce import reduce_impl
-
-    B, C, k, r = 8, 512, 12, 6
-    count = rng.integers(0, C, B).astype(np.int32)
-    count[0] = 0
-    count[1] = C
-    # stream planes: H hashes (duplicates likely: small value range to
-    # exercise ties), P = pos<<2|strand<<1
-    H = rng.integers(0, 50, (B, C)).astype(np.uint32)
-    P = ((rng.integers(0, 2**15, (B, C)).astype(np.uint32) << np.uint32(2))
-         | (rng.integers(0, 2, (B, C)).astype(np.uint32) << np.uint32(1)))
-    col = np.arange(C)[None, :]
-    inn = col < count[:, None]
-
-    H2, P2, rs, cnt = reduce_step(jnp.asarray(H), jnp.asarray(P),
-                                  jnp.asarray(count), r=r, interpret=True)
-    oH = np.asarray(move_plane(rs, H2, interpret=True))
-    oP = np.asarray(move_plane(rs, P2, interpret=True))
-    cnt = np.asarray(cnt)
-
-    # reference on u64 records (rid constant per row)
-    INF = np.uint64(0xFFFFFFFFFFFFFFFF)
-    rid = np.arange(B, dtype=np.uint64)[:, None]
-    x = (H.astype(np.uint64) << np.uint64(8)) | np.uint64(k)
-    y = ((rid << np.uint64(32))
-         | ((P.astype(np.uint64) >> np.uint64(2)) << np.uint64(1))
-         | ((P.astype(np.uint64) >> np.uint64(1)) & np.uint64(1)))
-    x = np.where(inn, x, INF)
-    y = np.where(inn, y, INF)
-    rx, ry, rc = reduce_impl(jnp.asarray(x), jnp.asarray(y),
-                             jnp.asarray(count), r=r)
-    rx, ry, rc = np.asarray(rx), np.asarray(ry), np.asarray(rc)
-
-    np.testing.assert_array_equal(cnt, rc)
-    for b in range(B):
-        n = cnt[b]
-        got_x = (oH[b, :n].astype(np.uint64) << np.uint64(8)) | np.uint64(k)
-        got_y = ((np.uint64(b) << np.uint64(32))
-                 | ((oP[b, :n].astype(np.uint64) >> np.uint64(2))
-                    << np.uint64(1))
-                 | ((oP[b, :n].astype(np.uint64) >> np.uint64(1))
-                    & np.uint64(1)))
-        np.testing.assert_array_equal(got_x, rx[b, :n], err_msg=f"x row {b}")
-        np.testing.assert_array_equal(got_y, ry[b, :n], err_msg=f"y row {b}")

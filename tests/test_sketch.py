@@ -158,167 +158,6 @@ def test_shift_compact_matches_sort_compact(rng):
         np.testing.assert_array_equal(np.asarray(sa), np.asarray(ha))
 
 
-def test_compact_pallas_interpret_matches_shift(rng):
-    import jax.numpy as jnp
-    from peregrine_tpu.ops.compact_pallas import compact_planes
-    from peregrine_tpu.ops.sketch import _shift_compact
-
-    B, L = 8, 512
-    for p in (0.9, 0.05, 0.0, 1.0):
-        keep = rng.random((B, L)) < p
-        p1 = rng.integers(0, 2**32, (B, L)).astype(np.uint32)
-        p2 = rng.integers(0, 2**32, (B, L)).astype(np.uint32)
-        (o1, o2), cnt = compact_planes(
-            jnp.asarray(keep.astype(np.int32)),
-            (jnp.asarray(p1), jnp.asarray(p2)),
-            (0xFFFFFFFF, 0), interpret=True)
-        (s1, s2), scnt = _shift_compact(
-            jnp.asarray(keep), [jnp.asarray(p1), jnp.asarray(p2)],
-            fills=[jnp.uint32(0xFFFFFFFF), jnp.uint32(0)])
-        np.testing.assert_array_equal(np.asarray(cnt), np.asarray(scnt))
-        np.testing.assert_array_equal(np.asarray(o1), np.asarray(s1))
-        np.testing.assert_array_equal(np.asarray(o2), np.asarray(s2))
-
-
-def test_emit_mask_pallas_interpret_matches_xla(rng):
-    """The fused Pallas emission kernel equals the XLA reference block on
-    random compacted streams (incl. amb placeholders, warmup INF hashes,
-    short rows)."""
-    import jax
-    import jax.numpy as jnp
-    from peregrine_tpu.ops.compact_pallas import emit_mask
-    from peregrine_tpu.ops.sketch import (_sliding_min_trailing,
-                                          _sliding_max_leading)
-
-    B, L, w, k = 8, 1024, 24, 12
-    INF32 = np.uint32(0xFFFFFFFF)
-    n = rng.integers(0, L, B).astype(np.int32)
-    n[0] = 0
-    n[1] = L
-    sH = rng.integers(0, 2**32, (B, L)).astype(np.uint32)
-    amb = rng.random((B, L)) < 0.02
-    warm = rng.random((B, L)) < 0.05
-    sH = np.where(amb | warm, INF32, sH)
-    sPl = ((rng.integers(0, L, (B, L)).astype(np.uint32) << np.uint32(2))
-           | rng.integers(0, 2, (B, L)).astype(np.uint32) << np.uint32(1)
-           | amb.astype(np.uint32))
-    col = np.arange(L)[None, :]
-    hole = col >= n[:, None]
-    sH = np.where(hole, INF32, sH)
-    sPl = np.where(hole, INF32, sPl)
-
-    r2, cnt = emit_mask(jnp.asarray(sH), jnp.asarray(sPl),
-                        jnp.asarray(n), w=w, k=k, interpret=True)
-
-    # XLA reference block (mirrors ops.sketch._sketch_impl_packed)
-    scol = jnp.arange(L)[None, :]
-    in_n = scol < jnp.asarray(n)[:, None]
-    samb = ((jnp.asarray(sPl) & jnp.uint32(1)) != 0) & in_n
-    last_amb = jax.lax.cummax(jnp.where(samb, scol, -1), axis=1)
-    sl = (scol - last_amb).astype(jnp.int32)
-    W = _sliding_min_trailing(jnp.asarray(sH), w, jnp.uint32(0xFFFFFFFF))
-    complete = sl >= (w + k - 1)
-    Ap = jnp.where(complete & in_n, W, jnp.uint32(0))
-    M = _sliding_max_leading(Ap, w, jnp.uint32(0))
-    emit = (jnp.asarray(sH) != jnp.uint32(0xFFFFFFFF)) & (M == jnp.asarray(sH))
-    in_final = (scol >= (jnp.asarray(n)[:, None] - w)) & in_n
-    xm = jnp.where(in_final, jnp.asarray(sH), jnp.uint32(0xFFFFFFFF))
-    fmin = jnp.min(xm, axis=1)
-    t_f = jnp.max(jnp.where((xm == fmin[:, None]) & in_final, scol, -1), axis=1)
-    has_final = (fmin != jnp.uint32(0xFFFFFFFF)) & (t_f >= 0)
-    emit = emit | ((scol == t_f[:, None]) & has_final[:, None])
-    emit = np.asarray(emit)
-    col = np.arange(L)[None, :]
-    cvk = np.cumsum(emit, axis=1)
-    r_ref = np.where(emit, col - cvk + 1, 0)
-    np.testing.assert_array_equal(np.asarray(r2), r_ref)
-    np.testing.assert_array_equal(np.asarray(cnt), emit.sum(axis=1))
-
-
-def test_build_stream_pallas_interpret_matches_xla(rng):
-    """The fused Pallas stream build equals the XLA reference block
-    (rolling canonical k-mers, hash, ambiguity run length)."""
-    import jax
-    import jax.numpy as jnp
-    from peregrine_tpu.ops.compact_pallas import build_stream
-    from peregrine_tpu.ops.sketch import hash64, _shift_right
-
-    B, L = 8, 512
-    for k in (11, 12, 16):
-        codes = rng.integers(0, 4, (B, L)).astype(np.uint8)
-        codes[rng.random((B, L)) < 0.02] = 4          # ambiguous
-        lengths = rng.integers(1, L + 1, B).astype(np.int32)
-        lengths[0] = L
-
-        H, Pl, r1, n = build_stream(jnp.asarray(codes), jnp.asarray(lengths),
-                                    k=k, interpret=True)
-
-        # XLA reference (mirrors ops.sketch._sketch_impl_packed)
-        mask = jnp.uint32((1 << (2 * k)) - 1)
-        pos = jnp.arange(L)[None, :]
-        c = jnp.asarray(codes).astype(jnp.int32)
-        inlen = pos < jnp.asarray(lengths)[:, None]
-        valid = (c < 4) & inlen
-        amb = (c >= 4) & inlen
-        cb = (c & 3).astype(jnp.uint32)
-        cbr = cb ^ jnp.uint32(3)
-        fwd = jnp.zeros((B, L), jnp.uint32)
-        rev = jnp.zeros((B, L), jnp.uint32)
-        for d in range(k):
-            fwd = fwd | (_shift_right(cb, d, jnp.uint32(0)) << jnp.uint32(2 * d))
-            rev = rev | (_shift_right(cbr, d, jnp.uint32(0))
-                         << jnp.uint32(2 * (k - 1 - d)))
-        fwd = fwd & mask
-        sym = (fwd == rev) & valid
-        strand = jnp.where(fwd < rev, jnp.uint32(0), jnp.uint32(1))
-        hsh = hash64(jnp.minimum(fwd, rev), mask)
-        vns = valid & ~sym
-        cvns = jnp.cumsum(vns, axis=1).astype(jnp.int32)
-        at_amb = jax.lax.cummax(jnp.where(amb, cvns, 0), axis=1)
-        defined = vns & ((cvns - at_amb) >= k)
-        H_ref = jnp.where(defined, hsh, jnp.uint32(0xFFFFFFFF))
-        P_ref = ((pos.astype(jnp.uint32) << jnp.uint32(2))
-                 | (strand << jnp.uint32(1)) | amb.astype(jnp.uint32))
-        inc_ref = vns | amb
-
-        np.testing.assert_array_equal(np.asarray(H), np.asarray(H_ref),
-                                      err_msg=f"H k={k}")
-        np.testing.assert_array_equal(np.asarray(Pl), np.asarray(P_ref),
-                                      err_msg=f"P k={k}")
-        inc_np = np.asarray(inc_ref)
-        col = np.arange(L)[None, :]
-        cvk = np.cumsum(inc_np, axis=1)
-        r_ref = np.where(inc_np, col - cvk + 1, 0)
-        np.testing.assert_array_equal(np.asarray(r1), r_ref,
-                                      err_msg=f"r k={k}")
-        np.testing.assert_array_equal(np.asarray(n), inc_np.sum(axis=1),
-                                      err_msg=f"n k={k}")
-
-
-def test_move_plane_interpret_matches_shift(rng):
-    """move_plane with producer-computed shift distances equals the XLA
-    shift compaction within the count (tails are stale by contract)."""
-    import jax.numpy as jnp
-    from peregrine_tpu.ops.compact_pallas import move_plane
-    from peregrine_tpu.ops.sketch import _shift_compact
-
-    B, L = 8, 512
-    for p in (0.97, 0.03, 1.0):
-        keep = rng.random((B, L)) < p
-        vals = rng.integers(0, 2**32, (B, L)).astype(np.uint32)
-        col = np.arange(L)[None, :]
-        cvk = np.cumsum(keep, axis=1)
-        r = np.where(keep, col - cvk + 1, 0).astype(np.int32)
-        got = np.asarray(move_plane(jnp.asarray(r), jnp.asarray(vals),
-                                    interpret=True))
-        (ref,), cnt = _shift_compact(jnp.asarray(keep), [jnp.asarray(vals)],
-                                     fills=[jnp.uint32(0)])
-        cnt = np.asarray(cnt)
-        for b in range(B):
-            np.testing.assert_array_equal(got[b, :cnt[b]],
-                                          np.asarray(ref)[b, :cnt[b]])
-
-
 def test_sketch_long_cap_overflow_fallback(rng):
     """A dense sketch (tiny w) overflows the capped device fetch; the
     uncapped refetch path must still return the exact emission set."""
